@@ -1,19 +1,19 @@
-"""Chip-scale differentiable tree search vs discrete climbers.
+"""Device-scale differentiable tree search vs discrete climbers.
 
 The reference's signature capability is differentiable tree search by
 annealed Gumbel-softmax over topologies + soft ancestor sequences
 (``/root/reference/src/trex/tree.py:50-107``, exercised there only at 4-8
 leaves in ``tests/test_convergence.py:208-299``). This benchmark runs the
-same joint relaxation at 64 taxa x 1024 sites ON CHIP, projects the learned
-soft adjacency onto a valid topology (``ops.relax.project_topology``), and
-scores it with the exact Fitch kernel against:
+same joint relaxation at 64 taxa x 1024 sites on the device, projects the
+learned soft adjacency onto a valid topology (``ops.relax.project_topology``),
+and scores it with exact Fitch against:
 
   - the true simulated tree's parsimony score,
   - random-start NNI and analytic SPR-scan hill climbs (same data),
   - a random-topology baseline.
 
 All restarts of the differentiable search run as ONE vmapped jitted scan
-(restarts are a batch axis on chip). Prints one JSON line per method:
+(restarts are a batch axis on the device). Prints one JSON line per method:
   {"method": ..., "score": N, "seconds": N, "evals": N}
 
 Usage: python benchmarks/diff_search.py [--taxa 64] [--sites 1024]

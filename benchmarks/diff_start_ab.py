@@ -1,12 +1,12 @@
-"""A/B: ``infer --start diff`` vs ``--start random`` end to end on chip.
+"""A/B: ``infer --start diff`` vs ``--start random`` end to end on the GPU.
 
-Round-3 verdict item 6's measurement bar: does the differentiable coarse
+The measurement bar: does the differentiable coarse
 initializer (8 vmapped joint-relaxation restarts -> project -> best exact
 score, ``cli/_common.py::_start_tree('diff')``) beat a random start on
 end-to-end wall time to an equal final score at 128 taxa?
 
 Both arms run the REAL CLI handler (``trex_tpu.cli.main``) in one process
-(cross-process chip-claim handoff would swamp the signal, CLAUDE.md). A
+(one JAX process per card, CLAUDE.md). A
 throwaway ``--rounds 1`` warmup pays the hill-climb/scan compile for the
 128-taxa shape so neither timed arm carries it; the diff arm's own
 relaxation compile stays INSIDE its timed run (charged against diff —

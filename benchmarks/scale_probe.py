@@ -1,8 +1,7 @@
 """Scale-ceiling probe: stepwise + SPR-scan search at 2048-4096 taxa.
 
-Round-1 demonstrated 1024 taxa x 1024 sites (speed_of_light.md); this
-probe pushes to 2048 and 4096 taxa x up-to-4k sites on one chip and
-records where VMEM/HBM/chunking guards engage and what each phase costs.
+This probe pushes to 2048 and 4096 taxa x up-to-4k sites on one card and
+records where the memory/chunking guards engage and what each phase costs.
 Known guards exercised:
 
 - ``search.hillclimb`` bounds the scan's peak set tensors to ~2 GB via

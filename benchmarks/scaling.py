@@ -1,6 +1,6 @@
 """Scaling-efficiency harness: trees/s vs device count on one mesh.
 
-Usage (real pod or virtual CPU devices):
+Usage (real GPUs or virtual CPU devices):
 
     # 8-way virtual CPU mesh
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -8,14 +8,15 @@ Usage (real pod or virtual CPU devices):
 
 Measures batched candidate scoring on meshes of 1..N devices and reports
 parallel efficiency (speedup / device count) as JSON lines — the "scaling
-efficiency at N hosts" metric of BASELINE.md. On a multi-host pod, run under
+efficiency at N hosts" metric of BASELINE.md. Across hosts, run under
 ``jax.distributed`` (``trex_tpu.parallel.initialize_distributed``) and the
-same mesh logic spans hosts; tree stays on DCN, site on ICI.
+same mesh logic spans hosts; tree goes over the inter-host links, site
+stays on NVLink.
 
 NOTE: on a VIRTUAL CPU mesh (xla_force_host_platform_device_count) the
 devices timeshare the same physical cores, so throughput cannot scale;
 virtual-mesh runs validate sharded-program *correctness* only (see
-tests/test_sharding.py). Real efficiency numbers require real chips.
+tests/test_sharding.py). Real efficiency numbers require real GPUs.
 """
 
 from __future__ import annotations

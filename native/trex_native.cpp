@@ -1,6 +1,6 @@
 // trex_tpu native runtime: tree I/O and host-side search-move generation.
 //
-// The TPU owns the numerics (Sankoff DP, gradients); this library owns the
+// The accelerator owns the numerics (Sankoff DP, gradients); this library owns the
 // irregular, pointer-chasing host work that XLA is bad at:
 //   - Newick parsing/serialization into the engine's node-order contract
 //     (leaves 0..n_leaves-1, ancestors above, root last, children always

@@ -18,7 +18,7 @@ from trex_tpu.io import DNA, IUPAC_DNA_MASKS, parse_fasta_masks
 from trex_tpu.ops.dispatch import batched_scores_fastest
 from trex_tpu.ops.fitch import fitch_reconstruct, fitch_score
 from trex_tpu.ops.sankoff import sankoff_reconstruct, sankoff_score
-from trex_tpu.ops.sankoff_pallas import batched_fitch_score_pallas
+from trex_tpu.ops import fitch_pallas
 from trex_tpu.topology import random_topologies
 
 Q = 4
@@ -97,8 +97,8 @@ def test_fully_ambiguous_leaf_contributes_zero():
     assert got <= full
 
 
-@pytest.mark.parametrize("trees_per_block", [1, 2])
-def test_pallas_interpret_matches_lax_with_masks(trees_per_block):
+@pytest.mark.parametrize("site_block", [32, 64])
+def test_pallas_interpret_matches_lax_with_masks(site_block):
     topos = random_topologies(jax.random.key(11), 8, 5)
     rng = np.random.default_rng(11)
     seqs = rng.integers(0, Q, size=(8, 40)).astype(np.int32)
@@ -113,12 +113,14 @@ def test_pallas_interpret_matches_lax_with_masks(trees_per_block):
             for i in range(5)
         ]
     )
-    got = batched_fitch_score_pallas(
+    got = fitch_pallas._fitch_scores(
         topos,
         masks,
-        interpret=True,
-        trees_per_block=trees_per_block,
+        None,
         sequences_are_masks=True,
+        site_block=site_block,
+        table_budget=fitch_pallas.TABLE_BUDGET_BYTES,
+        interpret=True,
     )
     np.testing.assert_array_equal(np.asarray(got), np.asarray(expected))
     via_dispatch = batched_scores_fastest(

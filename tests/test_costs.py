@@ -114,13 +114,61 @@ def test_transition_transversion_cost_model():
     assert m[0, 2] == m[2, 0] == 1.0
     assert m[1, 3] == m[3, 1] == 1.0
     assert m[0, 1] == m[0, 3] == 2.5
-    # Weighted parsimony via the general kernel path agrees with lax.
+    # Weighted parsimony via the general-cost dispatch agrees with lax.
+    from trex_tpu.ops.dispatch import batched_scores_fastest
     from trex_tpu.ops.sankoff import batched_sankoff_score
-    from trex_tpu.ops.sankoff_pallas import batched_sankoff_score_pallas
     from trex_tpu.topology import random_topologies
 
     topos = random_topologies(jax.random.PRNGKey(0), 8, 3)
     leaf = jax.random.randint(jax.random.PRNGKey(1), (8, 64), 0, 4)
     want = batched_sankoff_score(topos, cm.matrix, leaf)
-    got = batched_sankoff_score_pallas(topos, cm.matrix, leaf, interpret=True)
+    got = batched_scores_fastest(topos, cm.matrix, leaf)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+def _brute_force_parsimony(children, n_leaves, cost, leaf, weights):
+    """Min over every ancestral labeling, site by site (tiny trees only)."""
+    import itertools
+
+    n_anc = n_leaves - 1
+    cost = np.asarray(cost)
+    total = 0.0
+    for site in range(leaf.shape[1]):
+        best = np.inf
+        for labels in itertools.product(range(cost.shape[0]), repeat=n_anc):
+            state = list(leaf[:, site]) + list(labels)
+            c = sum(
+                cost[state[n_leaves + a], state[child]]
+                for a in range(n_anc)
+                for child in children[a]
+            )
+            best = min(best, c)
+        total += weights[site] * best
+    return total
+
+
+@pytest.mark.parametrize("n_leaves", [3, 4, 5])
+def test_general_cost_dispatch_matches_brute_force(n_leaves):
+    """Non-Hamming costs take the lax min-plus path: exact minimum."""
+    from trex_tpu.ops.dispatch import batched_scores_fastest
+    from trex_tpu.topology import random_topologies
+
+    rng = np.random.default_rng(n_leaves)
+    cost = rng.integers(1, 5, (4, 4)).astype(np.float32)
+    cost = (cost + cost.T) / 2
+    np.fill_diagonal(cost, 0.0)
+    topos = random_topologies(jax.random.PRNGKey(n_leaves), n_leaves, 3)
+    leaf = rng.integers(0, 4, (n_leaves, 6)).astype(np.int32)
+    weights = rng.integers(1, 4, 6).astype(np.float32)
+    got = np.asarray(
+        batched_scores_fastest(
+            topos, jnp.asarray(cost), jnp.asarray(leaf),
+            site_weights=jnp.asarray(weights),
+        )
+    )
+    children = np.asarray(topos.children)
+    want = [
+        _brute_force_parsimony(children[b], n_leaves, cost, leaf, weights)
+        for b in range(3)
+    ]
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

@@ -2,8 +2,9 @@
 
 One randomized test ties the whole engine together: for random shapes,
 alphabets, and topologies, the lax Sankoff DP, the Hamming closed form, the
-Fitch bitsets, both fused kernels (interpret mode), the weighted/compressed
-variants, and the 8-device sharded path must all return the same scores.
+Fitch bitsets, the GPU Fitch kernel (interpret mode), the dispatcher, the
+weighted/compressed variants, and the sharded path must all return the
+same scores.
 """
 
 import jax
@@ -17,10 +18,8 @@ from trex_tpu.ops.sankoff import (
     batched_sankoff_score,
     batched_sankoff_score_hamming,
 )
-from trex_tpu.ops.sankoff_pallas import (
-    batched_fitch_score_pallas,
-    batched_sankoff_score_pallas,
-)
+from trex_tpu.ops.dispatch import batched_scores_fastest
+from trex_tpu.ops.fitch_pallas import batched_fitch_score_pallas
 from trex_tpu.parallel.mesh import make_mesh
 from trex_tpu.parallel.sharded import sharded_batch_scores
 from trex_tpu.topology import random_topologies
@@ -46,11 +45,9 @@ def test_all_paths_agree(trial):
     paths = {
         "lax-hamming": batched_sankoff_score_hamming(topos, cost, leaf),
         "fitch-lax": batched_fitch_score(topos, leaf),
-        "minplus-kernel": batched_sankoff_score_pallas(
-            topos, cost, leaf, interpret=True
-        ),
+        "dispatch": batched_scores_fastest(topos, cost, leaf),
         "fitch-kernel": batched_fitch_score_pallas(
-            topos, leaf, interpret=True, trees_per_block=2
+            topos, leaf, interpret=True
         ),
         "sharded": sharded_batch_scores(mesh, topos, cost, leaf),
     }

@@ -8,9 +8,25 @@ import pytest
 from trex_tpu.ops.costs import exact_cost
 from trex_tpu.ops.fitch import batched_fitch_score, fitch_reconstruct, fitch_score
 from trex_tpu.ops.sankoff import batched_sankoff_score, sankoff_score
-from trex_tpu.ops.sankoff_pallas import batched_fitch_score_pallas
-from trex_tpu.topology import balanced_topology, random_topologies, topology_to_adjacency
+from trex_tpu.ops import fitch_pallas as fp
+from trex_tpu.ops.fitch_pallas import batched_fitch_score_pallas
+from trex_tpu.topology import (
+    Topology,
+    balanced_topology,
+    random_topologies,
+    topology_to_adjacency,
+)
 from trex_tpu.types import CostModel
+
+
+def kernel_at_block(topos, leaf, site_block, *, site_weights=None,
+                    sequences_are_masks=False,
+                    table_budget=fp.TABLE_BUDGET_BYTES):
+    """The scoring kernel (interpret mode) at a chosen site block."""
+    return fp._fitch_scores(
+        topos, leaf, site_weights, sequences_are_masks=sequences_are_masks,
+        site_block=site_block, table_budget=table_budget, interpret=True,
+    )
 
 
 @pytest.mark.parametrize("n_leaves,q,length", [(4, 4, 20), (8, 2, 33), (16, 20, 40)])
@@ -70,20 +86,19 @@ def test_fitch_site_mask():
     )
 
 
-@pytest.mark.parametrize("trees_per_block", [2, 4, 8])
-def test_fitch_pallas_multi_tree_parity(trees_per_block):
+@pytest.mark.parametrize("site_block", [32, 64, 256])
+def test_fitch_pallas_multi_tree_parity(site_block):
+    """Every power-of-two site block gives the same scores."""
     n_leaves, q, length = 8, 4, 1024
-    topos = random_topologies(jax.random.PRNGKey(8), n_leaves, 6)  # 6 % T != 0
+    topos = random_topologies(jax.random.PRNGKey(8), n_leaves, 6)
     leaf = jax.random.randint(jax.random.PRNGKey(9), (n_leaves, length), 0, q)
     want = batched_fitch_score_pallas(topos, leaf, interpret=True)
-    got = batched_fitch_score_pallas(
-        topos, leaf, interpret=True, trees_per_block=trees_per_block
-    )
+    got = kernel_at_block(topos, leaf, site_block)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
 def test_fitch_pallas_large_tree_pack_shrink():
-    """512-leaf trees shrink the node tile to stay in the VMEM budget."""
+    """512-leaf trees: 511 ancestor rows pad to a 512-row program table."""
     n_leaves, q, length = 512, 4, 256
     topos = random_topologies(jax.random.PRNGKey(12), n_leaves, 2)
     leaf = jax.random.randint(jax.random.PRNGKey(13), (n_leaves, length), 0, q)
@@ -133,20 +148,19 @@ def test_fitch_pallas_weighted_compressed_patterns():
     leaf = jax.random.randint(jax.random.PRNGKey(15), (n_leaves, length), 0, q)
     patterns, weights = compress_alignment(np.asarray(leaf))
     full = batched_fitch_score_pallas(topos, leaf, interpret=True)
-    compressed = batched_fitch_score_pallas(
+    compressed = kernel_at_block(
         topos,
         jnp.asarray(patterns),
+        64,
         site_weights=jnp.asarray(weights, jnp.float32),
-        interpret=True,
-        trees_per_block=2,
     )
     np.testing.assert_array_equal(np.asarray(compressed), np.asarray(full))
 
 
-@pytest.mark.parametrize("trees_per_block", [1, 2])
-def test_fitch_swar_packing_parity(trees_per_block):
-    # 4-sites-per-word SWAR variant == lax Fitch exactly, weighted,
-    # at lengths that exercise padding and multi-word packing.
+@pytest.mark.parametrize("site_block", [32, 128])
+def test_fitch_swar_packing_parity(site_block):
+    # Weighted scores == lax Fitch exactly at a length that leaves a
+    # partial last site block (weight-0, state-0 padding).
     rng = np.random.default_rng(17)
     n_leaves, length, batch = 10, 300, 5
     topos = random_topologies(jax.random.PRNGKey(17), n_leaves, batch)
@@ -161,9 +175,8 @@ def test_fitch_swar_packing_parity(trees_per_block):
             for i in range(batch)
         ]
     )
-    got = batched_fitch_score_pallas(
-        topos, jnp.asarray(seqs), site_weights=weights, interpret=True,
-        trees_per_block=trees_per_block, site_packing=4, n_states=4,
+    got = kernel_at_block(
+        topos, jnp.asarray(seqs), site_block, site_weights=weights
     )
     np.testing.assert_array_equal(np.asarray(got), np.asarray(expected))
 
@@ -184,16 +197,113 @@ def test_fitch_swar_packing_masks_and_validation():
         ]
     )
     got = batched_fitch_score_pallas(
-        topos, jnp.asarray(masks), interpret=True,
-        site_packing=4, n_states=4, sequences_are_masks=True,
+        topos, jnp.asarray(masks), interpret=True, sequences_are_masks=True,
     )
     np.testing.assert_array_equal(np.asarray(got), np.asarray(expected))
-    with pytest.raises(ValueError, match="n_states <= 8"):
-        batched_fitch_score_pallas(
-            topos, jnp.asarray(seqs), interpret=True,
-            site_packing=4, n_states=20,
-        )
-    with pytest.raises(ValueError, match="site_packing"):
-        batched_fitch_score_pallas(
-            topos, jnp.asarray(seqs), interpret=True, site_packing=3,
-        )
+    with pytest.raises(ValueError, match="power of two"):
+        kernel_at_block(topos, jnp.asarray(seqs), 48)
+
+
+@pytest.mark.parametrize(
+    "length,requested,expected",
+    [(1024, 128, 128), (70, 128, 128), (40, 128, 64), (5, 32, 8), (1, 32, 1)],
+)
+def test_site_block_shrinks_to_alignment(length, requested, expected):
+    from trex_tpu.ops.fitch_pallas import site_block_for
+
+    assert site_block_for(length, requested) == expected
+
+
+@pytest.mark.parametrize("x,expected", [(1, 1), (2, 2), (3, 4), (63, 64), (64, 64), (65, 128)])
+def test_next_pow2(x, expected):
+    from trex_tpu.ops.fitch_pallas import next_pow2
+
+    assert next_pow2(x) == expected
+
+
+def test_fitch_kernel_partial_counts_reduce_to_scores():
+    """Per-site partial counts, summed by XLA, give the weighted score; a
+    batch of one tree and fractional weights take the same path."""
+    rng = np.random.default_rng(23)
+    topos = random_topologies(jax.random.PRNGKey(23), 6, 1)
+    seqs = rng.integers(0, 4, size=(6, 45)).astype(np.int32)
+    weights = rng.random(45).astype(np.float32)
+    got = kernel_at_block(
+        topos, jnp.asarray(seqs), 16, site_weights=jnp.asarray(weights)
+    )
+    t0 = jax.tree_util.tree_map(lambda a: a[0], topos)
+    _, per_site = _per_site_events(t0, seqs)
+    np.testing.assert_allclose(
+        np.asarray(got), [np.sum(per_site * weights)], rtol=1e-6
+    )
+
+
+def _per_site_events(topo, seqs):
+    """Host Fitch: (root set, per-site union events) of one tree."""
+    children = np.asarray(topo.children)
+    n = seqs.shape[0]
+    sets = list(1 << seqs.astype(np.int64))
+    events = np.zeros(seqs.shape[1])
+    for c0, c1 in children:
+        inter = sets[c0] & sets[c1]
+        empty = inter == 0
+        events += empty
+        sets.append(np.where(empty, sets[c0] | sets[c1], inter))
+    assert len(sets) == 2 * n - 1
+    return sets[-1], events
+
+
+@pytest.mark.parametrize("trees_per_chunk", [1, 2, 3, 5])
+def test_fitch_kernel_table_budget_chunks_batch(trees_per_chunk):
+    """A batch whose node tables exceed the budget runs in chunks of trees
+    (the last chunk padded with all-zero trees); the scores equal lax."""
+    n_leaves, length, batch, block = 10, 70, 5, 32
+    topos = random_topologies(jax.random.PRNGKey(31), n_leaves, batch)
+    leaf = jax.random.randint(jax.random.PRNGKey(32), (n_leaves, length), 0, 4)
+    per_tree = fp.next_pow2(n_leaves - 1) * 96 * 4  # 70 sites pad to 96
+    got = kernel_at_block(
+        topos, leaf, block, table_budget=trees_per_chunk * per_tree
+    )
+    want = batched_fitch_score(topos, leaf)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+@pytest.mark.parametrize(
+    "n_leaves,length,batch,grid,table_gb",
+    [
+        (64, 1024, 2048, (2048, 8), 0.54),
+        (1024, 1024, 256, (256, 8), 1.07),
+        (1024, 1024, 1024, (512, 8), 4.29),  # over budget: two chunks
+        (12, 40, 3, (3, 1), 0.0),  # block shrinks to 64 sites
+    ],
+)
+def test_fitch_kernel_grid_and_table_footprint(
+    n_leaves, length, batch, grid, table_gb, monkeypatch
+):
+    """The public kernel uses the module's site block and table budget:
+    one program per (tree, site block), and a node table of
+    trees x n_anc_pad x padded_L int32 per call, at most 2 GiB."""
+    seen = {}
+
+    def fake_call(kernel, *, grid, out_shape, **kw):
+        seen.update(grid=grid, table=out_shape[1].shape, backend=kw["backend"])
+        return lambda *args: [jnp.zeros(out_shape[0].shape, jnp.int32), None]
+
+    monkeypatch.setattr(fp.pl, "pallas_call", fake_call)
+    monkeypatch.setattr(fp, "_fitch_scores", fp._fitch_scores.__wrapped__)
+    n_anc = n_leaves - 1
+    topos = Topology(
+        children=jnp.zeros((batch, n_anc, 2), jnp.int32),
+        parents=jnp.zeros((batch, 2 * n_leaves - 1), jnp.int32),
+    )
+    out = batched_fitch_score_pallas(
+        topos, jnp.zeros((n_leaves, length), jnp.int32)
+    )
+    assert out.shape == (batch,)
+    assert seen["backend"] == "triton"
+    assert seen["grid"] == grid
+    block = min(fp.FITCH_SITE_BLOCK, fp.next_pow2(length))
+    assert seen["table"] == (grid[0], grid[1], fp.next_pow2(n_anc), block)
+    table_bytes = 4 * int(np.prod(seen["table"]))
+    assert table_bytes <= fp.TABLE_BUDGET_BYTES
+    assert abs(batch / grid[0] * table_bytes / 1e9 - table_gb) < 0.01

@@ -12,11 +12,11 @@ import numpy as np
 import pytest
 
 from trex_tpu.ops.likelihood import (
+    batched_log_likelihood,
     optimize_branch_lengths,
     tree_log_likelihood,
     tree_log_likelihood_gamma,
 )
-from trex_tpu.ops.likelihood_pallas import batched_log_likelihood_pallas
 from trex_tpu.topology import random_topologies
 
 Q = 4
@@ -98,10 +98,11 @@ def test_fully_missing_leaf_marginalizes_out():
     np.testing.assert_allclose(got, np.sum(per_site), rtol=1e-5)
 
 
-@pytest.mark.parametrize("trees_per_block", [1, 2])
-def test_pallas_interpret_matches_lax_with_masks(trees_per_block):
+@pytest.mark.parametrize("batch", [1, 3])
+def test_pallas_interpret_matches_lax_with_masks(batch):
+    """The batched ML scorer == per-tree log-likelihood, ambiguity present."""
     rng = np.random.default_rng(11)
-    n_leaves, length, batch = 8, 24, 3
+    n_leaves, length = 8, 24
     topos = random_topologies(jax.random.key(11), n_leaves, batch)
     seqs = rng.integers(0, Q, size=(n_leaves, length)).astype(np.int32)
     masks = (1 << seqs).astype(np.int32)
@@ -120,17 +121,15 @@ def test_pallas_interpret_matches_lax_with_masks(trees_per_block):
             for i in range(batch)
         ]
     )
-    got = batched_log_likelihood_pallas(
-        topos, blens, jnp.asarray(masks), Q,
-        interpret=True, trees_per_block=trees_per_block,
-        sequences_are_masks=True,
+    got = batched_log_likelihood(
+        topos, blens, jnp.asarray(masks), Q, sequences_are_masks=True,
     )
     np.testing.assert_allclose(np.asarray(got), np.asarray(expected), rtol=2e-5)
 
 
 def test_compressed_patterns_exact_for_likelihood():
-    # Weighted unique-pattern log-lik == full-alignment log-lik, on the lax
-    # path and the kernel (interpret mode), with ambiguity present.
+    # Weighted unique-pattern log-lik == full-alignment log-lik, per tree
+    # and through the batched scorer, with ambiguity present.
     from trex_tpu.alignment import compress_alignment
 
     rng = np.random.default_rng(21)
@@ -155,14 +154,13 @@ def test_compressed_patterns_exact_for_likelihood():
     )
     np.testing.assert_allclose(float(compressed), float(full), rtol=1e-6)
 
-    kernel_full = batched_log_likelihood_pallas(
-        topos, blens, jnp.asarray(masks), Q,
-        interpret=True, sequences_are_masks=True,
+    kernel_full = batched_log_likelihood(
+        topos, blens, jnp.asarray(masks), Q, sequences_are_masks=True,
     )
-    kernel_compressed = batched_log_likelihood_pallas(
+    kernel_compressed = batched_log_likelihood(
         topos, blens, jnp.asarray(patterns), Q,
         site_weights=jnp.asarray(weights, jnp.float32),
-        interpret=True, sequences_are_masks=True,
+        sequences_are_masks=True,
     )
     np.testing.assert_allclose(
         np.asarray(kernel_compressed), np.asarray(kernel_full), rtol=2e-5
@@ -170,18 +168,14 @@ def test_compressed_patterns_exact_for_likelihood():
 
 
 def test_kernel_site_block_shrink_stays_lane_aligned():
-    # 64 leaves x 1331 sites with T=2 exceeds the kernel's VMEM budget and
-    # forces the site_block shrink; the shrunk block must stay a multiple of
-    # 128 (1408 -> 704 = 5.5 x 128 was rejected by Mosaic on real TPU).
-    # Interpret mode checks the host-side logic + value correctness.
+    # 64 leaves x 1331 sites (an odd length) through the batched scorer
+    # equals the per-tree likelihood.
     rng = np.random.default_rng(31)
     n_leaves, length = 64, 1331
     topos = random_topologies(jax.random.key(31), n_leaves, 2)
     seqs = jnp.asarray(rng.integers(0, Q, size=(n_leaves, length)).astype(np.int32))
     blens = jnp.full((2, 2 * n_leaves - 1), 0.1)
-    got = batched_log_likelihood_pallas(
-        topos, blens, seqs, Q, interpret=True, trees_per_block=2
-    )
+    got = batched_log_likelihood(topos, blens, seqs, Q)
     expected = jnp.stack(
         [
             tree_log_likelihood(

@@ -337,16 +337,15 @@ def test_sampled_model_recovers_gtr():
 def test_pallas_prior_folding_matches_lax():
     """Per-tree root priors folded into the root-child P == explicit prior.
 
-    The sampled-model Pallas path cannot pass per-tree root priors, so it
-    scales the root's first child transition rows by diag(freqs) and sums
-    with a ones prior. Verified in interpret mode against the lax pruning
-    with explicit transition matrices + true prior."""
+    A scorer with one shared prior takes per-tree root priors by scaling
+    the root's first child transition rows by diag(freqs) and summing with
+    a ones prior (sum_s pi_s A_s B_s == sum_s (diag(pi) A)_s B_s). Checked
+    against the pruning with explicit transition matrices + true prior."""
     from trex_tpu.ops.likelihood import (
         _per_site_log_likelihood,
         gtr_eigensystem,
         gtr_transition,
     )
-    from trex_tpu.ops.likelihood_pallas import batched_log_likelihood_pallas
     from trex_tpu.search.mcmc import _pairs_to_matrix
 
     rng = np.random.default_rng(0)
@@ -387,15 +386,22 @@ def test_pallas_prior_folding_matches_lax():
     ])
     c1 = children[:, -1, 0]
     folded = pmats.at[jnp.arange(batch), c1].multiply(freqs_v[:, :, None])
-    got = batched_log_likelihood_pallas(
-        Topology(
-            children=children, parents=jnp.zeros((batch, n_all), jnp.int32)
-        ),
-        lengths, leaves, q,
-        transition_matrices=folded,
-        root_prior=jnp.ones((q,), jnp.float32),
-        interpret=True,
-    )
+    got = np.array([
+        float(
+            jnp.sum(
+                _per_site_log_likelihood(
+                    Topology(
+                        children=children[b],
+                        parents=jnp.zeros((n_all,), jnp.int32),
+                    ),
+                    lengths[b], leaves, q,
+                    transition_matrices=folded[b],
+                    root_prior=jnp.ones((q,), jnp.float32),
+                )
+            )
+        )
+        for b in range(batch)
+    ])
     np.testing.assert_allclose(np.asarray(got), want, rtol=2e-5)
 
 

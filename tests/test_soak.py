@@ -13,10 +13,9 @@ from trex_tpu.alignment import compress_alignment
 from trex_tpu.ops.costs import exact_cost
 from trex_tpu.ops.fitch import batched_fitch_score, fitch_reconstruct
 from trex_tpu.ops.sankoff import batched_sankoff_score, sankoff_reconstruct
-from trex_tpu.ops.sankoff_pallas import (
-    batched_fitch_score_pallas,
-    batched_sankoff_score_pallas,
-)
+from trex_tpu.ops.dispatch import batched_scores_fastest
+from trex_tpu.ops import fitch_pallas
+from trex_tpu.ops.fitch_pallas import batched_fitch_score_pallas
 from trex_tpu.io import align_leaf_order, load_newick, save_newick
 from trex_tpu.search.bootstrap import subtree_leaf_sets
 from trex_tpu.topology import random_topologies, topology_to_adjacency
@@ -40,16 +39,16 @@ def test_randomized_soak(trial):
 
     assert np.array_equal(np.asarray(batched_fitch_score(topos, leaf)), ref)
     assert np.array_equal(
-        np.asarray(
-            batched_sankoff_score_pallas(topos, cost, leaf, interpret=True)
-        ),
-        ref,
+        np.asarray(batched_scores_fastest(topos, cost, leaf)), ref
     )
-    t_blk = int(rng.choice([1, 4]))
+    block = int(rng.choice([32, 128]))
     assert np.array_equal(
         np.asarray(
-            batched_fitch_score_pallas(
-                topos, leaf, interpret=True, trees_per_block=t_blk
+            fitch_pallas._fitch_scores(
+                topos, leaf, None, sequences_are_masks=False,
+                site_block=block,
+                table_budget=fitch_pallas.TABLE_BUDGET_BYTES,
+                interpret=True,
             )
         ),
         ref,

@@ -1,4 +1,4 @@
-"""Stepwise-addition starting trees (TPU-batched greedy construction)."""
+"""Stepwise-addition starting trees (device-batched greedy construction)."""
 
 import jax
 import jax.numpy as jnp
@@ -228,9 +228,9 @@ def test_device_insertion_steps_are_optimal():
 
 
 def test_insertion_delta_kernel_parity():
-    """Mosaic insertion kernel (interpret mode) == the lax down+delta."""
-    from trex_tpu.ops.insertion_pallas import insertion_delta_pallas
-    from trex_tpu.ops.spr_scan import _combine0, spr_scan
+    """GPU insertion kernel (interpret mode) == spr_scan's own delta."""
+    from trex_tpu.ops.fitch_pallas import insertion_delta_pallas
+    from trex_tpu.ops.spr_scan import spr_scan
     from trex_tpu.topology import random_topologies
 
     rng = np.random.default_rng(23)
@@ -258,8 +258,7 @@ def test_insertion_delta_kernel_parity():
     got = np.asarray(
         insertion_delta_pallas(
             jnp.asarray(var), jnp.asarray(up), jnp.int32(t),
-            jnp.asarray(weights), n_leaves=n, site_block=128,
-            interpret=True,
+            jnp.asarray(weights), n_leaves=n, interpret=True,
         )
     )
     # Oracle: spr_scan's own delta for this prune node (scores - total).
@@ -281,40 +280,47 @@ def test_insertion_delta_kernel_parity():
     assert base is not None
 
 
-def test_insertion_kernel_auto_site_block():
-    """VMEM auto-shrink: 8192 taxa shrinks 512 -> 384; small stays put;
-    past the no-fit point the error is a clear ValueError, not Mosaic OOM."""
-    import pytest
+@pytest.mark.parametrize(
+    "n_leaves,length,requested,block,n_pad",
+    [(12, 70, 32, 32, 32), (12, 20, 32, 32, 32), (12, 5, 32, 8, 32),
+     (2048, 4096, 32, 32, 4096), (9, 600, 64, 64, 32)],
+)
+def test_insertion_kernel_auto_site_block(
+    n_leaves, length, requested, block, n_pad, monkeypatch
+):
+    """Block choice and padding: the site block shrinks to a power of two
+    covering the alignment, rows pad to a power of two (at least one
+    16-row chunk), and there is no taxon ceiling."""
+    from trex_tpu.ops import fitch_pallas as fp
 
-    from trex_tpu.ops.insertion_pallas import (
-        _LANES,
-        _VMEM_TARGET,
-        _auto_site_block,
+    seen = {}
+
+    def fake_call(kernel, *, grid, in_specs, out_specs, out_shape, **kw):
+        seen.update(grid=grid, out_shape=out_shape, backend=kw["backend"])
+        return lambda *args: [
+            jnp.zeros(s.shape, s.dtype) for s in out_shape
+        ]
+
+    monkeypatch.setattr(fp.pl, "pallas_call", fake_call)
+    n_all = 2 * n_leaves - 1
+    out = fp._insertion_delta.__wrapped__(
+        jnp.zeros((n_leaves - 1, 2), jnp.int32),
+        jnp.zeros((n_all, length), jnp.int32), jnp.int32(0),
+        jnp.ones((length,), jnp.float32), n_leaves=n_leaves,
+        site_block=requested, interpret=False,
     )
-
-    assert _auto_site_block(256, 512) == 512  # small trees untouched
-    # 8192 taxa (n_pad 16384): the (16384, 512) config measured 103.8 MB
-    # against the 100 MB scoped-vmem limit on chip; the model must pick a
-    # smaller lane-aligned block that fits.
-    got = _auto_site_block(16384, 512)
-    assert got == 384
-    assert 12 * 16384 * got + 4 * 16384 * _LANES <= _VMEM_TARGET
-    # Exact no-fit boundary from the footprint model: a 128-lane block
-    # stops fitting once 2048*n_pad > _VMEM_TARGET, i.e. n_pad > 49,152
-    # (~24.5k taxa).
-    assert _auto_site_block(49152, 512) == _LANES
-    with pytest.raises(ValueError, match="scoped-VMEM"):
-        _auto_site_block(49160, 512)
-    with pytest.raises(ValueError, match="scoped-VMEM"):
-        _auto_site_block(1 << 19, 512)
+    assert out.shape == (n_all,)
+    assert seen["backend"] == "triton"
+    assert seen["grid"] == (-(-length // block),)
+    assert seen["out_shape"][1].shape == (n_pad, seen["grid"][0] * block)
 
 
 def test_insertion_kernel_block_size_parity():
-    """Same inputs at site_block 512 vs 384 (interpret mode) give identical
+    """Same inputs at site_block 128 vs 32 (interpret mode) give identical
     deltas for integer weights: per-site terms are blocking-invariant and
-    integer-weight f32 sums are exact, so the accumulation regrouping
-    cannot change a bit (the _auto_site_block shrink is output-invisible)."""
-    from trex_tpu.ops.insertion_pallas import insertion_delta_pallas
+    integer-weight f32 sums are exact, so the partial-sum regrouping
+    cannot change a bit."""
+    from trex_tpu.ops.fitch_pallas import _insertion_delta
     from trex_tpu.topology import random_topologies
 
     rng = np.random.default_rng(31)
@@ -340,12 +346,12 @@ def test_insertion_kernel_block_size_parity():
     weights = rng.integers(1, 5, length).astype(np.float32)
     outs = [
         np.asarray(
-            insertion_delta_pallas(
+            _insertion_delta(
                 jnp.asarray(var), jnp.asarray(up), jnp.int32(t),
                 jnp.asarray(weights), n_leaves=n, site_block=sb,
                 interpret=True,
             )
         )
-        for sb in (512, 384)
+        for sb in (128, 32)
     ]
     np.testing.assert_array_equal(outs[0], outs[1])

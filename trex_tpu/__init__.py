@@ -1,13 +1,13 @@
-"""trex_tpu — a TPU-native differentiable phylogenetics engine.
+"""trex_tpu — a differentiable phylogenetics engine on JAX/XLA.
 
 A ground-up JAX/XLA/Pallas implementation of differentiable maximum-parsimony
 phylogenetics with the capabilities of the reference library maraxen/trex
 (differentiable evolution tree search):
 
 - Exact Sankoff min-plus dynamic programming for parsimony scoring and
-  ancestral sequence reconstruction (``trex_tpu.ops.sankoff``), with a fused
-  Pallas TPU kernel for batched candidate-tree scoring
-  (``trex_tpu.ops.sankoff_pallas``).
+  ancestral sequence reconstruction (``trex_tpu.ops.sankoff``), Fitch
+  bitsets for unit costs, and GPU kernels for batched candidate-tree
+  scoring and stepwise insertion (``trex_tpu.ops.fitch_pallas``).
 - Differentiable relaxations: Gumbel-softmax tree topologies, soft ancestor
   sequences, quadratic surrogate / substitution-weighted soft parsimony costs,
   and binary-tree constraint penalties (``trex_tpu.ops``).
@@ -15,10 +15,10 @@ phylogenetics with the capabilities of the reference library maraxen/trex
   Metropolis-Hastings evolution simulators (``trex_tpu.models``).
 - Gradient-based search drivers (ASR, landscape-aware, joint topology +
   sequence optimization) under ``trex_tpu.search``.
-- Multi-chip scaling via ``jax.sharding.Mesh`` + ``shard_map`` over
+- Multi-device scaling via ``jax.sharding.Mesh`` + ``shard_map`` over
   ``('tree', 'site')`` axes (``trex_tpu.parallel``).
 
-Design notes (TPU-first, not a port):
+Design notes (accelerator-first, not a port):
 
 - Tree topologies are struct-of-arrays (``Topology``: per-ancestor child index
   pairs + per-node parent indices), never dense adjacency inside compute. This
@@ -26,9 +26,9 @@ Design notes (TPU-first, not a port):
   (``/root/reference/src/trex/sankoff.py:60``) and makes candidate-tree
   batches a plain leading vmap axis.
 - The Sankoff DP table is laid out ``(nodes, states, sites)`` so alignment
-  sites ride the 128-wide TPU lanes and the min-plus inner product is a
-  broadcast + reduce on the VPU; the site axis is embarrassingly parallel and
-  shards cleanly across chips.
+  sites are the contiguous, vectorized axis and the min-plus inner product
+  is a broadcast + reduce; the site axis is embarrassingly parallel and
+  shards cleanly across devices.
 - All shapes are static; padding/bucketing utilities (``trex_tpu.padding``)
   keep XLA from recompiling as problem sizes vary.
 """

@@ -2,7 +2,7 @@
 
 Documentation-grade aliases covering the reference's type vocabulary
 (``/root/reference/src/trex/types.py``, ``src/trex/utils/types.py``) plus the
-TPU-native layouts this engine actually uses. Pure annotations — nothing here
+accelerator layouts this engine actually uses. Pure annotations — nothing here
 affects runtime.
 """
 
@@ -29,7 +29,7 @@ ParentVector = Int[Array, "nodes"]
 TreeLogits = Float[Array, "nodes_minus_1 ancestors"]
 """Learnable parent-assignment logits for the soft topology."""
 
-# --- Sankoff DP (TPU layout: sites on lanes) ---------------------------------
+# --- Sankoff DP (layout: sites on the vector axis) ---------------------------
 CostMatrix = Float[Array, "states states"]
 DPTable = Float[Array, "nodes states sites"]
 """Engine DP layout (the reference's is (sites, nodes, states))."""

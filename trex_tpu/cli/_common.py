@@ -151,13 +151,10 @@ def _start_tree(kind: str, masks, n_states: int, seed: int, weights, orders: int
         return balanced_topology(n_leaves)
     if kind == "diff":
         # Differentiable coarse initializer (the reference's signature
-        # capability, /root/reference/src/trex/tree.py:50-107, in its
-        # measured production role): 8 vmapped joint-relaxation restarts
-        # -> project to valid trees -> best exact score. Round-3 chip
-        # measurement: matches the NNI climb's tree quality in 1/13th the
-        # wall time at 128 taxa (benchmarks/speed_of_light.md,
-        # "Differentiable search at chip scale") — a fast basin-finder
-        # for the discrete refinement that follows.
+        # capability, /root/reference/src/trex/tree.py:50-107): 8 vmapped
+        # joint-relaxation restarts -> project to valid trees -> best
+        # exact score — a fast basin-finder for the discrete refinement
+        # that follows.
         import jax.numpy as jnp
 
         from trex_tpu.ops.dispatch import batched_scores_fastest

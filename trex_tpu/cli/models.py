@@ -100,8 +100,7 @@ def cmd_partition(args) -> None:
         "n_taxa": len(names),
         "n_sites": int(masks.shape[1]),
         "linked": args.linked,
-        # Sum of per-partition lnLs at the FINAL parameters (losses[-1] is
-        # one optimizer step behind).
+        # Sum of per-partition lnLs at the final parameters.
         "log_likelihood": float(
             sum(
                 float(result["partitions"][p]["log_likelihood"])

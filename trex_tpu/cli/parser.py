@@ -82,9 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "distance methods, random/balanced, or 'diff' — "
                         "the differentiable joint relaxation as a coarse "
                         "initializer (8 vmapped restarts, projected to "
-                        "valid trees, best exact score; measured to match "
-                        "NNI-climb quality in ~1/13th the wall time at "
-                        "128 taxa)")
+                        "valid trees, best exact score)")
     p.add_argument("--orders", type=int, default=4,
                    help="random addition orders for --start stepwise")
     p.add_argument("--constraint", type=str, default=None,
@@ -468,10 +466,9 @@ def build_parser() -> argparse.ArgumentParser:
                    default="informed")
     p.add_argument("--informed-power", type=float, default=0.1,
                    help="weight exponent p of the informed proposal "
-                   "(neighbor weight posterior^(p*beta)). Default 0.1 = "
-                   "the measured ESS/s winner (2.4x the literature "
-                   "p=0.5, which loses to the uniform proposal on "
-                   "peaked posteriors — speed_of_light.md)")
+                   "(neighbor weight posterior^(p*beta)). Default 0.1: "
+                   "the literature p=0.5 is near-deterministic on "
+                   "peaked posteriors and stalls the chain")
     p.add_argument("--full-bayes", action="store_true",
                    help="sample GTR exchangeabilities + frequencies in the "
                    "chain (flat Dirichlet priors) instead of fixing them "
@@ -512,7 +509,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: list[str] | None = None) -> None:
+    from trex_tpu.utils.compile_cache import enable_compile_cache
+
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
     args.fn(args)
 
 

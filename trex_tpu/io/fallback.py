@@ -18,14 +18,17 @@ def _canonicalize(n_leaves: int, kids: dict[int, list[int]], root: int):
     """
     n_all = 2 * n_leaves - 1
     minleaf: dict[int, int] = {}
-
-    def fill_minleaf(node: int) -> int:
-        if node not in minleaf:
-            cs = kids.get(node, [])
-            minleaf[node] = node if not cs else min(fill_minleaf(c) for c in cs)
-        return minleaf[node]
-
-    fill_minleaf(root)
+    # Iterative post-order: stepwise trees can be thousands of levels deep.
+    pending = [root]
+    while pending:
+        node = pending[-1]
+        cs = kids.get(node, [])
+        todo = [c for c in cs if c not in minleaf]
+        if todo:
+            pending.extend(todo)
+            continue
+        pending.pop()
+        minleaf[node] = node if not cs else min(minleaf[c] for c in cs)
     relabel = {i: i for i in range(n_leaves)}
     order: list[int] = []
     stack = [root]

@@ -5,7 +5,7 @@ epistatic landscape (per-site lookup tables over the site's own state and K
 partner states) plus a simulator that evolves sequences down a tree with
 coupled/random mutation proposals filtered by an MH acceptance step.
 
-TPU-native notes:
+Design notes:
 
 - The landscape is a typed pytree (``NKLandscape``) rather than a loose dict;
   fitness evaluation is the same gather + power-basis dot as the reference

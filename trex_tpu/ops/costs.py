@@ -2,12 +2,12 @@
 
 Counterparts of the reference's cost layer
 (``/root/reference/src/trex/tree.py:163-296``), kept in the same quadratic
-gram-expansion form because it is already MXU-shaped: the only O(N^2 L Q) term
-is a single ``(N, L*Q) @ (L*Q, N)`` matmul, which XLA tiles onto the systolic
-array. No N×N×L×Q tensor is ever materialized.
+gram-expansion form because it is already matmul-shaped: the only
+O(N^2 L Q) term is a single ``(N, L*Q) @ (L*Q, N)`` matmul, which XLA hands
+to the matrix units. No N×N×L×Q tensor is ever materialized.
 
 All matmuls request ``preferred_element_type=float32`` so bfloat16 inputs
-still accumulate in f32 on the MXU.
+still accumulate in f32.
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
-"""Backend dispatch: pick the fastest scoring implementation per platform.
+"""Backend dispatch: the one place that chooses kernel or lax.
 
-The Pallas fused kernel (``sankoff_pallas``) is the production TPU path; the
-lax formulation is the oracle and the fallback everywhere else (CPU tests,
-interpret-mode parity, platforms without Mosaic). Hamming substitution costs
-(the reference's universal choice) take O(Q) closed-form message paths in
-both backends.
+On a GPU the Fitch row-walk kernels (``ops.fitch_pallas``, Pallas through
+Triton) are compiled for the card; everywhere else the lax formulations
+run. Interpret mode is for tests only: nothing here ever selects it.
+Hamming substitution costs (the reference's universal choice) take the
+Fitch bitset path; other costs take the lax min-plus Sankoff.
 """
 
 from __future__ import annotations
@@ -12,8 +12,22 @@ from __future__ import annotations
 import jax
 import numpy as np
 
-from trex_tpu.ops.sankoff import batched_sankoff_score
 from trex_tpu.topology import Topology
+
+
+def _platform() -> str:
+    return jax.default_backend()
+
+
+def use_kernel(n_states: int = 4) -> bool:
+    """Whether the Fitch row-walk kernels (``ops.fitch_pallas``) run.
+
+    Decided from the platform and the shape: the kernels exist for the
+    GPU only, and their state sets are int32 bitmasks, so the alphabet
+    must fit in 32 bits (the stepwise insertion path keeps an event flag
+    at bit 30, so its callers already hold Q <= 30).
+    """
+    return _platform() == "gpu" and n_states <= 32
 
 
 def _is_hamming(cost_matrix) -> bool:
@@ -23,6 +37,36 @@ def _is_hamming(cost_matrix) -> bool:
         return False
     q = c.shape[-1]
     return bool(np.array_equal(c, np.ones((q, q)) - np.eye(q)))
+
+
+def batched_fitch_scores(
+    topologies: Topology,
+    leaf_sequences: jax.Array,
+    site_weights: jax.Array | None = None,
+    *,
+    sequences_are_masks: bool = False,
+    n_states: int = 4,
+) -> jax.Array:
+    """(B,) unit-cost Fitch scores: the GPU kernel or the vmapped lax scan.
+
+    Traceable (usable inside ``shard_map``); the choice is static.
+    """
+    if use_kernel(n_states):
+        from trex_tpu.ops.fitch_pallas import batched_fitch_score_pallas
+
+        return batched_fitch_score_pallas(
+            topologies, leaf_sequences,
+            site_weights=site_weights,
+            sequences_are_masks=sequences_are_masks,
+        )
+    from trex_tpu.ops.fitch import fitch_score
+
+    return jax.vmap(
+        lambda t: fitch_score(
+            t, leaf_sequences, site_mask=site_weights,
+            sequences_are_masks=sequences_are_masks,
+        )
+    )(topologies)
 
 
 def batched_scores_fastest(
@@ -35,60 +79,23 @@ def batched_scores_fastest(
 ) -> jax.Array:
     """Score a candidate batch with the fastest available backend.
 
-    Selection: Hamming cost + n_states<=32 -> Fitch bitsets (fused kernel on
-    TPU, lax elsewhere); other costs -> min-plus Sankoff (fused kernel on
-    TPU, lax elsewhere). ``sequences_are_masks``: leaves are int32 state-set
-    bitmasks (IUPAC ambiguity / gaps), not integer states.
+    Selection: Hamming cost + n_states <= 32 -> Fitch bitsets (GPU kernel
+    on a GPU, lax elsewhere); other costs -> lax min-plus Sankoff.
+    ``sequences_are_masks``: leaves are int32 state-set bitmasks (IUPAC
+    ambiguity / gaps), not integer states.
 
     Do NOT wrap this dispatcher in ``jax.jit``: fast-path selection inspects
     the concrete cost matrix (a traced matrix conservatively falls back to
     the general min-plus path). The selected implementations are jitted.
     """
-    hamming = _is_hamming(cost_matrix) and cost_matrix.shape[-1] <= 32
-    on_tpu = jax.default_backend() == "tpu"
-    if hamming:
-        if on_tpu:
-            from trex_tpu.ops.sankoff_pallas import batched_fitch_score_pallas
-
-            # trees_per_block auto-picked by the kernel (SMEM-safe cap; see
-            # batched_fitch_score_pallas docstring). Long alignments take
-            # the SWAR 4-sites-per-word variant: slower per dependent step
-            # but 4x fewer site blocks — with the carried-count kernels the
-            # crossover is ~3k sites on v5e (nodes2 755k vs swar 629k
-            # trees/s at 2048; swar 458k vs 375k at 4096, 234k vs 189k at
-            # 8192). Small ancestor counts also get a full loop unroll
-            # (+6% measured at 64 taxa; bounded n_anc keeps compiles fast).
-            q = cost_matrix.shape[-1]
-            n_anc = topologies.children.shape[-2]
-            packing = (
-                4
-                if q <= 8 and n_anc <= 255 and leaf_sequences.shape[-1] > 3072
-                else 1
-            )
-            unroll = n_anc if (packing == 1 and n_anc <= 64) else 1
-            return batched_fitch_score_pallas(
-                topologies, leaf_sequences,
-                site_weights=site_weights,
-                sequences_are_masks=sequences_are_masks,
-                site_packing=packing, n_states=q, unroll=unroll,
-            )
-        from trex_tpu.ops.fitch import fitch_score
-
-        return jax.vmap(
-            lambda t: fitch_score(
-                t, leaf_sequences, site_mask=site_weights,
-                sequences_are_masks=sequences_are_masks,
-            )
-        )(topologies)
+    q = cost_matrix.shape[-1]
+    if _is_hamming(cost_matrix) and q <= 32:
+        return batched_fitch_scores(
+            topologies, leaf_sequences, site_weights,
+            sequences_are_masks=sequences_are_masks, n_states=q,
+        )
     from trex_tpu.ops.sankoff import sankoff_score
 
-    if on_tpu and not sequences_are_masks:
-        from trex_tpu.ops.sankoff_pallas import batched_sankoff_score_pallas
-
-        return batched_sankoff_score_pallas(
-            topologies, cost_matrix, leaf_sequences,
-            site_weights=site_weights, hamming=False,
-        )
     return jax.vmap(
         lambda t: sankoff_score(
             t, cost_matrix, leaf_sequences, site_mask=site_weights,

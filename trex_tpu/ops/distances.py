@@ -1,11 +1,11 @@
-"""Pairwise sequence distances, shaped for the MXU.
+"""Pairwise sequence distances, shaped as matmuls.
 
 The reference has no distance methods at all; production tree search needs
 them for starting trees (neighbor joining, ``search/nj.py``) and data
-diagnostics. TPU-first design: the (n, n) mismatch-count matrix is Q
-matmuls of one-hot indicator matrices — ``matches = sum_q X_q @ X_q^T`` —
-which XLA tiles straight onto the systolic array, instead of the O(n^2 L)
-elementwise broadcast a naive port would use.
+diagnostics. The (n, n) mismatch-count matrix is Q matmuls of one-hot
+indicator matrices — ``matches = sum_q X_q @ X_q^T`` — which XLA hands to
+the matrix units, instead of the O(n^2 L) elementwise broadcast a naive
+port would use.
 """
 
 from __future__ import annotations
@@ -31,8 +31,7 @@ def hamming_distance_matrix(
             bootstrap weights); a mismatch at site s counts ``w[s]``.
 
     Computed as ``total_weight - sum_q X_q W X_q^T`` with X the one-hot
-    indicators — Q weighted (n, L) @ (L, n) matmuls on the MXU, f32
-    accumulation.
+    indicators — Q weighted (n, L) @ (L, n) matmuls, f32 accumulation.
     """
     seqs = leaf_sequences.astype(jnp.int32)
     length = seqs.shape[-1]

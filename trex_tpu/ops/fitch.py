@@ -7,13 +7,13 @@ equivalence; asserted against the Sankoff oracle in
 bitmask, intersect children sets, and count a +1 union event whenever the
 intersection is empty.
 
-Why it's fast on TPU: a node's whole state set is ONE int32 per site (vs Q
-f32 DP cells), so per ancestor the update is ~4 integer VPU ops on (sites,)
-lanes — ~8x less arithmetic and 8x less VMEM than the f32 min-plus even in
-its closed-form Hamming variant. Limit: n_states <= 32.
+Why it's fast: a node's whole state set is ONE int32 per site (vs Q f32 DP
+cells), so per ancestor the update is ~4 integer ops per site — ~8x less
+arithmetic and memory than the f32 min-plus even in its closed-form Hamming
+variant. Limit: n_states <= 32.
 
-This module is the lax formulation (CPU fallback and oracle); the fused
-kernel lives in ``sankoff_pallas.batched_fitch_score_pallas``.
+This module is the lax formulation (the CPU path and the oracle); the GPU
+kernel lives in ``fitch_pallas.batched_fitch_score_pallas``.
 """
 
 from __future__ import annotations

@@ -95,9 +95,9 @@ def gtr_transition(
 ) -> jax.Array:
     """(Q, Q) transition matrix from a precomputed GTR eigensystem.
 
-    The reconstruction matmul runs at HIGHEST precision: TPU default
-    (bf16 passes) perturbs small transition probabilities by several
-    percent, which is likelihood-visible (~1% of the total lnL).
+    The reconstruction matmul runs at HIGHEST precision: a reduced-precision
+    default (TF32 on a GPU) perturbs small transition probabilities by
+    several percent, which is likelihood-visible (~1% of the total lnL).
     """
     p = jnp.matmul(
         right * jnp.exp(eigvals * branch_length)[None, :],
@@ -147,6 +147,47 @@ def tree_log_likelihood(
 batched_tree_log_likelihood = jax.vmap(
     tree_log_likelihood, in_axes=(0, 0, None, None)
 )
+
+
+def batched_log_likelihood(
+    topologies: Topology,
+    branch_lengths: jax.Array,
+    leaf_sequences: jax.Array,
+    n_states: int,
+    *,
+    shared_transition: jax.Array | None = None,
+    root_prior: jax.Array | None = None,
+    site_weights: jax.Array | None = None,
+    sequences_are_masks: bool = False,
+) -> jax.Array:
+    """(B,) log-likelihoods of a candidate batch (the batched ML scorer).
+
+    The scorer of the enumerating ML climbs, the ML bootstrap and the
+    mesh-sharded ranking. ``shared_transition`` (Q, Q) serves every branch
+    of every tree (ranking branches share one fixed length, so one matrix
+    covers the batch without materializing (B, n_all, Q, Q)), with
+    ``root_prior`` (default uniform); without it each branch gets JC69 at
+    its own length. ``site_weights`` (L,) multiply the per-site terms
+    (compressed patterns, bootstrap).
+    """
+    q = n_states
+    pmats = prior = None
+    if shared_transition is not None:
+        n_all = topologies.children.shape[-2] * 2 + 1
+        pmats = jnp.broadcast_to(shared_transition, (n_all, q, q))
+        prior = jnp.full((q,), 1.0 / q) if root_prior is None else root_prior
+
+    def one(topo, lengths):
+        per_site = _per_site_log_likelihood(
+            topo, lengths, leaf_sequences, q,
+            sequences_are_masks=sequences_are_masks,
+            transition_matrices=pmats, root_prior=prior,
+        )
+        if site_weights is not None:
+            per_site = per_site * site_weights.astype(per_site.dtype)
+        return jnp.sum(per_site)
+
+    return jax.vmap(one)(topologies, branch_lengths)
 
 
 def discrete_gamma_rates(shape: float | jax.Array, n_categories: int) -> jax.Array:
@@ -332,11 +373,12 @@ def per_site_log_likelihood(
 def highest_matmul_precision(fn):
     """Trace ``fn`` under f32 matmul precision.
 
-    TPU's default matmul precision runs bf16 passes; the likelihood stack's
-    small Q x Q transition/message contractions lose several percent on
-    individual probabilities that way (~1% of total lnL — model-selection
-    visible). Scoped here rather than set globally so the soft-cost MXU
-    gram matmuls keep the fast default.
+    On a GPU the default float32 matmul precision may run in TF32, which
+    keeps about three decimal digits; the likelihood stack's small Q x Q
+    transition/message contractions lose several percent on individual
+    probabilities that way (~1% of total lnL — model-selection visible).
+    "highest" keeps full float32. Scoped here rather than set globally so
+    the soft-cost gram matmuls keep the fast default.
     """
     import functools
 
@@ -717,7 +759,8 @@ def optimize_model(
         GTR models "rates" (Q, Q, symmetric, last pair 1.0) and "freqs"
         (Q,); plus "gamma_shape" / "p_invariant" / "category_rates" +
         "category_weights" when fit. ``losses`` is the negative-log-
-        likelihood curve.
+        likelihood curve (``n_iterations + 1`` entries; the last is at
+        the returned parameters).
 
     Note: GTR transition matrices go through ``jnp.linalg.eigh`` of the
     symmetrized generator; its gradient is undefined at exactly degenerate
@@ -772,7 +815,9 @@ def optimize_model(
         (params_f, _), losses = jax.lax.scan(
             step, (params, opt_state), None, length=n_iterations
         )
-        return params_f, losses
+        # Each scanned loss is taken before its update; close the curve
+        # with the loss of the parameters actually returned.
+        return params_f, jnp.append(losses, loss_fn(params_f))
 
     params_f, losses = run(params0)
     built, _, _ = build(params_f)
@@ -908,7 +953,8 @@ def optimize_model_partitioned(
         (params_f, _), losses = jax.lax.scan(
             step, (params, opt_state), None, length=n_iterations
         )
-        return params_f, losses
+        # As in ``optimize_model``: the curve ends at the returned params.
+        return params_f, jnp.append(losses, loss_fn(params_f))
 
     params_f, losses = run(params0)
     lengths, mult, parts, lls = part_lls(params_f)

@@ -1,4 +1,4 @@
-"""Exact Sankoff maximum-parsimony DP, TPU-native formulation.
+"""Exact Sankoff maximum-parsimony DP, accelerator formulation.
 
 Reference semantics (``/root/reference/src/trex/sankoff.py``):
   - leaf DP cost 0 at the observed state, 1e5 elsewhere (``:49-52, :152``);
@@ -8,10 +8,10 @@ Reference semantics (``/root/reference/src/trex/sankoff.py``):
   - backtracking table stores argmin child states per (node, state)
     (``:80-83``), consumed root-down.
 
-TPU-native differences (none change the numerics):
-  - DP layout is ``(nodes, states, sites)`` — sites ride the 128-wide lanes,
-    states the sublanes; the reference's per-site vmap layout ``(L, nodes, Q)``
-    leaves lanes nearly empty at Q=4.
+Differences from the reference (none change the numerics):
+  - DP layout is ``(nodes, states, sites)`` — sites are the contiguous vector
+    axis; the reference's per-site vmap layout ``(L, nodes, Q)`` leaves the
+    vector width nearly empty at Q=4.
   - The tree is consumed as a ``Topology`` (per-ancestor child index pairs),
     not a dense adjacency; no ``where(adj[:, node])`` gathers in the hot loop.
   - One ``lax.scan`` over ancestors carries the DP table; each step is a

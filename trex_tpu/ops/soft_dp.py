@@ -15,7 +15,7 @@ Gradients flow through the whole recursion:
   relaxed sequences) receive per-site credit assignment.
 
 Same layout and schedule as the exact path (``ops/sankoff.py``): scan over
-ancestors, (nodes, states, sites) tables, sites on lanes — so the soft DP
+ancestors, (nodes, states, sites) tables, sites vectorized — so the soft DP
 jits, vmaps over candidate batches, and shards exactly like the exact one.
 """
 

@@ -3,8 +3,8 @@
 XLA compiles one program per distinct shape; without bucketing, sweeping over
 problem sizes recompiles constantly. The reference caps its buckets at 256
 sites / 63 nodes (``/root/reference/src/trex/padding.py:26-28``); here buckets
-are open-ended powers-of-two (with a 128 lane-aligned floor for the site axis,
-which rides TPU lanes in the DP layout) so large alignments work too.
+are open-ended powers-of-two (with a floor of 128 for the site axis, the
+vector axis of the DP layout) so large alignments work too.
 
 Padded sites/nodes are excluded from results with boolean masks; the DP gives
 padded sites zero cost by construction (all-state cost 0 at padded leaf

@@ -246,8 +246,7 @@ def predicted_efficiency(
     """Parallel efficiency = compute / (compute + comm), non-overlapped.
 
     A deliberately pessimistic (no compute/comm overlap) model; with XLA's
-    latency-hiding scheduler the truth lies between this and 1.0. See
-    benchmarks/speed_of_light.md for the worked v5e numbers.
+    latency-hiding scheduler the truth lies between this and 1.0.
     """
     comm = sum(c.wire_bytes_per_device for c in collectives) / link_bytes_per_second
     return compute_seconds_per_step / (compute_seconds_per_step + comm)

@@ -1,9 +1,10 @@
 """Multi-host runtime initialization.
 
-The reference is single-process (SURVEY.md §2); this is the pod-slice entry
-point the north star requires. On TPU pods, ``jax.distributed.initialize``
-picks coordinator/process settings up from the TPU environment automatically;
-explicit arguments cover GPU/CPU clusters and tests.
+The reference is single-process (SURVEY.md §2); this is the multi-host entry
+point the north star requires. On GPU and CPU clusters nothing tells JAX of
+the cluster: pass ``coordinator_address`` (e.g. ``localhost:<port>``),
+``num_processes`` and ``process_id`` explicitly (as the tests do); a
+managed cluster environment that JAX detects needs none of them.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ def initialize_distributed(
     """Initialize the multi-host JAX runtime (idempotent, fail-fast).
 
     Returns True when a multi-process runtime was initialized, False when the
-    process is already single-host-only (no coordinator configured and no TPU
-    pod environment detected). Raises on timeout so hung pods fail fast
+    process is already single-host-only (no coordinator configured and no
+    cluster environment detected). Raises on timeout so hung pods fail fast
     rather than deadlocking in the first collective.
     """
     if jax.process_count() > 1:

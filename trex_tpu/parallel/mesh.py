@@ -9,8 +9,11 @@ The engine's two parallel axes (SURVEY.md §5):
   partial scores merged with one ``psum``. This is the "sequence parallelism"
   of this domain.
 
-On a pod slice, lay ``tree`` over the slower (DCN/host) dimension and
-``site`` over ICI so the per-step psum of site partials rides the fast links.
+On one host of four GPUs joined all to all by NVLink, every card reaches
+every other at the same rate, so the mesh follows the algorithm alone
+(``make_mesh`` gives 2 x 2 for four devices). Across hosts, lay ``tree``
+over the slower inter-host dimension so the per-step psum of site partials
+stays on NVLink.
 """
 
 from __future__ import annotations

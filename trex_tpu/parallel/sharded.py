@@ -2,7 +2,7 @@
 
 Explicit-collective formulations of the engine's two distributed workloads.
 Nothing here exists in the reference (it is single-device; SURVEY.md §2) —
-these are the TPU-native scaling components the north star demands.
+these are the scaling components the north star demands.
 
 Key fact making both cheap: every objective in this engine is a *sum over
 sites* (Sankoff total = site-sum of root minima, ``ops/sankoff.py``;
@@ -59,15 +59,15 @@ def sharded_batch_scores(
     Returns:
         (batch,) scores, sharded over ``tree`` (replicated over ``site``).
 
-    ``use_fitch`` selects the bitset fast path for Hamming costs (fused
-    kernel per shard on TPU, lax elsewhere); auto-detected from a concrete
-    cost matrix when None.
+    ``use_fitch`` selects the bitset fast path for Hamming costs (GPU
+    kernel per shard on a GPU, lax elsewhere; ``ops.dispatch``);
+    auto-detected from a concrete cost matrix when None.
     """
-    if use_fitch is None:
-        from trex_tpu.ops.dispatch import _is_hamming
+    from trex_tpu.ops.dispatch import _is_hamming, batched_fitch_scores
 
-        use_fitch = _is_hamming(cost_matrix) and cost_matrix.shape[-1] <= 32
-    on_tpu = jax.default_backend() == "tpu"
+    n_states = cost_matrix.shape[-1]
+    if use_fitch is None:
+        use_fitch = _is_hamming(cost_matrix) and n_states <= 32
     weights = (
         jnp.ones((leaf_sequences.shape[-1],), jnp.float32)
         if site_weights is None
@@ -87,22 +87,11 @@ def sharded_batch_scores(
         check_vma=False,
     )
     def score_shard(topos, cost, leaf_shard, w_shard):
-        if use_fitch and on_tpu:
-            from trex_tpu.ops.sankoff_pallas import batched_fitch_score_pallas
-
-            partial_scores = batched_fitch_score_pallas(
-                topos, leaf_shard, site_weights=w_shard,
-                sequences_are_masks=sequences_are_masks,
+        if use_fitch:
+            partial_scores = batched_fitch_scores(
+                topos, leaf_shard, w_shard,
+                sequences_are_masks=sequences_are_masks, n_states=n_states,
             )
-        elif use_fitch:
-            from trex_tpu.ops.fitch import fitch_score
-
-            partial_scores = jax.vmap(
-                lambda t: fitch_score(
-                    t, leaf_shard, w_shard,
-                    sequences_are_masks=sequences_are_masks,
-                )
-            )(topos)
         else:
             partial_scores = jax.vmap(
                 lambda t: sankoff_score(
@@ -139,7 +128,8 @@ def sharded_log_likelihoods(
 
     Returns (batch,) log-likelihoods, sharded over ``tree``.
     """
-    on_tpu = jax.default_backend() == "tpu"
+    from trex_tpu.ops.likelihood import batched_log_likelihood
+
     weights = (
         jnp.ones((leaf_sequences.shape[-1],), jnp.float32)
         if site_weights is None
@@ -159,25 +149,10 @@ def sharded_log_likelihoods(
         check_vma=False,
     )
     def score_shard(topos, blens, leaf_shard, w_shard):
-        if on_tpu:
-            from trex_tpu.ops.likelihood_pallas import (
-                batched_log_likelihood_pallas,
-            )
-
-            partial_lls = batched_log_likelihood_pallas(
-                topos, blens, leaf_shard, n_states, trees_per_block=2,
-                site_weights=w_shard,
-                sequences_are_masks=sequences_are_masks,
-            )
-        else:
-            from trex_tpu.ops.likelihood import tree_log_likelihood
-
-            partial_lls = jax.vmap(
-                lambda t, b: tree_log_likelihood(
-                    t, b, leaf_shard, n_states, site_mask=w_shard,
-                    sequences_are_masks=sequences_are_masks,
-                )
-            )(topos, blens)
+        partial_lls = batched_log_likelihood(
+            topos, blens, leaf_shard, n_states, site_weights=w_shard,
+            sequences_are_masks=sequences_are_masks,
+        )
         return jax.lax.psum(partial_lls, SITE_AXIS)
 
     return score_shard(topologies, branch_lengths, leaf_sequences, weights)
@@ -267,11 +242,11 @@ def sharded_best_tree(
     pairs over the ``tree`` axis — the best-tree reduction never leaves the
     mesh (SURVEY.md §7 M5). Returns (global_index, best_score), replicated.
     """
-    if use_fitch is None:
-        from trex_tpu.ops.dispatch import _is_hamming
+    from trex_tpu.ops.dispatch import _is_hamming, batched_fitch_scores
 
-        use_fitch = _is_hamming(cost_matrix) and cost_matrix.shape[-1] <= 32
-    on_tpu = jax.default_backend() == "tpu"
+    n_states = cost_matrix.shape[-1]
+    if use_fitch is None:
+        use_fitch = _is_hamming(cost_matrix) and n_states <= 32
 
     @partial(
         shard_map,
@@ -285,14 +260,10 @@ def sharded_best_tree(
         check_vma=False,
     )
     def select_shard(topos, cost, leaf_shard):
-        if use_fitch and on_tpu:
-            from trex_tpu.ops.sankoff_pallas import batched_fitch_score_pallas
-
-            partial_scores = batched_fitch_score_pallas(topos, leaf_shard)
-        elif use_fitch:
-            from trex_tpu.ops.fitch import batched_fitch_score
-
-            partial_scores = batched_fitch_score(topos, leaf_shard)
+        if use_fitch:
+            partial_scores = batched_fitch_scores(
+                topos, leaf_shard, n_states=n_states
+            )
         else:
             partial_scores = jax.vmap(sankoff_score, in_axes=(0, None, None))(
                 topos, cost, leaf_shard
@@ -506,10 +477,9 @@ def sharded_spr_scan(
     given budget admits ``n_dev``-times more prune parallelism per round.
 
     ``max_cells`` caps each DISPATCH's per-device prune-axis extent
-    (prune rows x n_all cells), mirroring ``ops.spr_scan._MAX_SCAN_CELLS``:
-    past ~2^25 cells in one program the TPU runtime dies outright (v5e
-    bisect, ops/spr_scan.py:248-257), and the chunk budget does NOT guard
-    it. When a shard's local prune set exceeds the cap, the scan runs as
+    (prune rows x n_all cells), mirroring ``ops.spr_scan._MAX_SCAN_CELLS``
+    (the chunk budget does NOT bound the one-dispatch program's extent).
+    When a shard's local prune set exceeds the cap, the scan runs as
     several equal-shaped shard_map dispatches (one compile), each scoring a
     slice of every device's rows; rows are computed whole per dispatch so
     the reassembled table is bit-identical to the one-dispatch scan.

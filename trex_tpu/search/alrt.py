@@ -6,8 +6,8 @@ the expensive resampled-search kind). For every internal branch the test
 compares the inferred resolution against the two nearest-neighbor-interchange
 alternatives around that branch — the three possible resolutions of the
 induced quartet — using per-site log-likelihood vectors, so the whole
-resampling step is one (replicates x patterns) @ (patterns x 3) matmul on the
-MXU per branch batch:
+resampling step is one (replicates x patterns) @ (patterns x 3) matmul per
+branch batch:
 
 - ``alrt``: the observed statistic 2*(lnL_best - lnL_second) per branch.
 - ``sh_alrt``: the SH-like correction in the style of Guindon et al. 2010

@@ -2,7 +2,8 @@
 
 Counterparts of the reference's optimization harnesses
 (``/root/reference/src/trex/evals/benchmark.py:75-202`` and the
-landscape-aware variants ``:235-456, :586-663``), redesigned for TPU:
+landscape-aware variants ``:235-456, :586-663``), redesigned for an
+accelerator:
 
 - Whole training loop is one jitted ``lax.scan`` (optimizer state in carry);
   nothing crosses the host boundary per step.
@@ -10,9 +11,10 @@ landscape-aware variants ``:235-456, :586-663``), redesigned for TPU:
   one chained-outer-product einsum over the K epistatic neighbors — instead
   of the reference's chunked per-site ``safe_map`` loop
   (``evals/benchmark.py:623-663``). An optional ``site_chunk`` re-chunks the
-  site axis through ``lax.map`` only when q**K blows past VMEM-friendly sizes.
+  site axis through ``lax.map`` only when q**K blows past memory-friendly
+  sizes.
 - Mixed precision keeps parameters f32 and casts the forward pass to the
-  compute dtype (bfloat16 on TPU), like the reference's flag.
+  compute dtype (e.g. bfloat16), like the reference's flag.
 """
 
 from __future__ import annotations

@@ -152,7 +152,8 @@ def ml_bootstrap_analysis(
     weights = _replicate_weights(
         key, leaf_sequences.shape[-1], n_replicates, site_weights
     )
-    on_tpu = jax.default_backend() == "tpu"
+    from trex_tpu.ops.likelihood import batched_log_likelihood
+
     n_all = reference.n_all
     dummy_cost = jnp.zeros((n_states, n_states))
     best: list[Topology] = []
@@ -168,24 +169,10 @@ def ml_bootstrap_analysis(
             def score_batch(topos, cost, leaves):
                 batch = topos.children.shape[0]
                 blens = jnp.full((batch, n_all), ranking_branch_length)
-                if on_tpu:
-                    from trex_tpu.ops.likelihood_pallas import (
-                        batched_log_likelihood_pallas,
-                    )
-
-                    return -batched_log_likelihood_pallas(
-                        topos, blens, leaves, n_states, trees_per_block=2,
-                        site_weights=w,
-                        sequences_are_masks=sequences_are_masks,
-                    )
-                from trex_tpu.ops.likelihood import tree_log_likelihood
-
-                return -jax.vmap(
-                    lambda t, b: tree_log_likelihood(
-                        t, b, leaves, n_states, site_mask=w,
-                        sequences_are_masks=sequences_are_masks,
-                    )
-                )(topos, blens)
+                return -batched_log_likelihood(
+                    topos, blens, leaves, n_states, site_weights=w,
+                    sequences_are_masks=sequences_are_masks,
+                )
 
         result = parsimony_hill_climb(
             reference,

@@ -16,7 +16,7 @@ verified against exhaustive enumeration on small instances in
 
 The reference has no branch-support machinery of any kind (SURVEY.md §5);
 this joins `search.bootstrap`/`search.alrt`/`search.ufboot` as new
-TPU-first capability riding the engine's analytic scan.
+capability riding the engine's analytic scan.
 """
 
 from __future__ import annotations

@@ -6,8 +6,8 @@ at age 0), the usual "date the inferred tree" workflow. Because no
 host-side move generation is needed, the ENTIRE sampler — all runs and
 chains, all generations — compiles to one jitted ``lax.scan`` over a
 vmapped chain batch: zero host/device round trips until the trace comes
-back. This is the TPU-ideal MCMC shape (contrast the topology sampler's
-2-3 syncs per generation).
+back. This is the ideal accelerator MCMC shape (contrast the topology
+sampler's 2-3 syncs per generation).
 
 Model: strict clock with rate 1 — ages are in expected-substitutions
 units; rescale externally with a calibration. Priors: root age
@@ -257,13 +257,8 @@ def mcmc_date(
             per_site = per_site * weights
         return jnp.sum(per_site)
 
-    # NOTE (measured on the v5e): routing this through the fused Pallas
-    # kernel gives NO speedup inside the generation scan at realistic
-    # chain counts (identical 62 gen/s at 8 chains; pathologically slow
-    # compile/dispatch at 32-64 chains) — the scan is latency-bound on
-    # sequential per-generation dependencies, not on the pruning compute.
-    # The lax path stays; the topology MCMC (large parallel neighbor
-    # batches, no cross-generation scan) is where the kernel pays off.
+    # The generation scan is latency-bound on sequential per-generation
+    # dependencies, not on the pruning compute, so the lax pruning serves.
     batched_lnl = jax.vmap(lnl_of_ages)
     sd2 = relaxed_sd * relaxed_sd
     # A calibrated root gets a UNIFORM prior from its bounds; the

@@ -5,7 +5,7 @@ topology and soft ancestor sequences against the surrogate parsimony cost +
 binary-tree constraint (reference flow: ``tests/test_convergence.py:208-299``
 driving ``tree.py:299-361``).
 
-TPU-native: the whole annealing schedule runs inside one jitted ``lax.scan``
+On device: the whole annealing schedule runs inside one jitted ``lax.scan``
 (temperature is a scanned input), so a 5000-step search is a single XLA
 program — the reference re-enters jit from Python each epoch.
 """
@@ -247,8 +247,8 @@ def fit_topology(
     (``tests/test_convergence.py:150-204``): constraint penalty is NOT
     temperature-scaled here.
 
-    TPU-native addition over the reference: ``n_restarts`` Gumbel descents run
-    as one vmapped program (restarts are a batch axis, nearly free on-chip)
+    Addition over the reference: ``n_restarts`` Gumbel descents run as one
+    vmapped program (restarts are a batch axis, nearly free on device)
     and the restart with the best evaluated discrete cost wins — single-seed
     descent lands in local minima for most seeds.
     """

@@ -11,7 +11,7 @@ by importance sampling from the rung's own samples; the log marginal
 likelihood is the sum of log r_k. Fixed topology, branch-length
 multiplier moves only.
 
-TPU shape: ALL rungs are rows of one vmapped chain batch, and the whole
+Device shape: ALL rungs are rows of one vmapped chain batch, and the whole
 ladder — every rung, every generation — runs as ONE jitted ``lax.scan``
 (zero host round trips). This is the same trick as ``search.dating``:
 what MrBayes runs as K sequential chains is here a single device batch.

@@ -11,10 +11,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from trex_tpu.ops.likelihood import (
-    optimize_branch_lengths,
-    tree_log_likelihood,
-)
+from trex_tpu.ops.likelihood import optimize_branch_lengths
 from trex_tpu.search.hillclimb import SearchResult, parsimony_hill_climb
 from trex_tpu.topology import Topology
 
@@ -118,12 +115,12 @@ def ml_hill_climb(
             losses = jnp.asarray([result.score])
         return result, lengths, losses
 
-    on_tpu = jax.default_backend() == "tpu"
+    # Ranking: every candidate branch shares one fixed length, so ONE
+    # (Q, Q) transition matrix (JC69, or GTR from the eigensystem) and the
+    # stationary prior cover the whole batch.
+    from trex_tpu.ops.likelihood import batched_log_likelihood, jc69_transition
 
-    # Model-aware ranking: all candidate branches share one fixed length, so
-    # ONE (Q, Q) transition matrix covers the whole batch; the fused kernel
-    # takes it (broadcast) with the stationary prior.
-    p0 = prior = None
+    prior = None
     if rates is not None or freqs is not None:
         from trex_tpu.ops.likelihood import gtr_eigensystem, gtr_transition
 
@@ -132,58 +129,20 @@ def ml_hill_climb(
         )
         model_freqs = freqs if freqs is not None else jnp.full((q,), 1.0 / q)
         eig = gtr_eigensystem(jnp.asarray(model_rates), jnp.asarray(model_freqs))
-        p0 = gtr_transition(jnp.asarray(ranking_branch_length), *eig)
+        shared = gtr_transition(jnp.asarray(ranking_branch_length), *eig)
         prior = jnp.asarray(model_freqs)
+    else:
+        shared = jc69_transition(jnp.asarray(ranking_branch_length), q)
 
     def score_batch(topos, _cost, leaves):
         batch = topos.children.shape[0]
         blens = jnp.full((batch, n_all), ranking_branch_length)
-        if on_tpu:
-            from trex_tpu.ops.likelihood import jc69_transition
-            from trex_tpu.ops.likelihood_pallas import (
-                batched_log_likelihood_pallas,
-            )
-
-            # Ranking config measured fastest on v5e at 64 taxa x 1k sites
-            # (round-3 interleaved sweep, benchmarks/lik_sweep*.py):
-            # trees-in-lanes layout, T=4, rescale every 4th ancestor —
-            # 196k trees/s vs 126k for the round-2 slots-T2 default (the
-            # full-unroll slots path is 173k). All ranking branches share
-            # one fixed length, so ONE (Q, Q) matrix feeds the kernel's
-            # shared-transition fast path (skips the (B, n_all, Q, Q)
-            # materialization, a ~19 ms/call fixed overhead at B=1024).
-            # The lanes kernel with rescale_every > 1 must fully unroll
-            # its ancestor loop (static rescale predicate), so Mosaic
-            # program size grows with T * n_anc; past the full-unroll
-            # threshold (n_anc > 64, the Fitch dispatch policy) fall back
-            # to the slots layout, whose fori_loop path compiles O(1).
-            shared = (
-                p0
-                if p0 is not None
-                else jc69_transition(
-                    jnp.asarray(ranking_branch_length), q
-                )
-            )
-            n_anc = (n_all - 1) // 2
-            if n_anc <= 64:
-                kernel_cfg = dict(
-                    trees_per_block=4, layout="lanes", rescale_every=4
-                )
-            else:
-                kernel_cfg = dict(trees_per_block=2, layout="slots")
-            return -batched_log_likelihood_pallas(
-                topos, blens, leaves, n_states,
-                shared_transition=shared, root_prior=prior,
-                sequences_are_masks=sequences_are_masks,
-                site_weights=site_weights, **kernel_cfg,
-            )
-        return -jax.vmap(
-            lambda t, b: tree_log_likelihood(
-                t, b, leaves, n_states, site_mask=site_weights,
-                rates=rates, freqs=freqs,
-                sequences_are_masks=sequences_are_masks,
-            )
-        )(topos, blens)
+        return -batched_log_likelihood(
+            topos, blens, leaves, n_states,
+            shared_transition=shared, root_prior=prior,
+            site_weights=site_weights,
+            sequences_are_masks=sequences_are_masks,
+        )
 
     dummy_cost = jnp.zeros((n_states, n_states))
     result = parsimony_hill_climb(  # generic greedy climber, ML objective

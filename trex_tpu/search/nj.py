@@ -3,9 +3,9 @@
 The reference's searches start from balanced or random topologies
 (``evals/benchmark.py:781-791``); production parsimony/ML search converges
 far faster from a distance tree. Split of labor: the O(n^2 L) distance
-matrix runs on TPU as MXU matmuls (``ops/distances.py``); the O(n^3)
+matrix runs on the device as matmuls (``ops/distances.py``); the O(n^3)
 agglomeration below is host-side numpy (it runs once, is branchy, and its
-n x n argmin scans would waste a TPU).
+n x n argmin scans would waste an accelerator).
 
 Output is a rooted binary ``Topology`` in the engine's canonical numbering
 (leaves first, ancestors in join order, root last) — each join creates the
@@ -157,7 +157,8 @@ def nj_start_tree(
 ) -> tuple[Topology, np.ndarray]:
     """Distance starting tree straight from an alignment.
 
-    TPU computes the distance matrix (MXU matmuls); the host agglomerates.
+    The device computes the distance matrix (matmuls); the host
+    agglomerates.
 
     Args:
         method: "nj" (default) or "upgma".

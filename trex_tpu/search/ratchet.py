@@ -81,7 +81,7 @@ def parsimony_ratchet(
     ``site_weights``: base per-site multiplicities (compressed patterns);
     the ratchet's perturbation multiplies them. ``sequences_are_masks``:
     leaves are int32 state-set bitmasks (IUPAC ambiguity / gaps). All
-    scoring goes through the fastest dispatch (fused kernels on TPU).
+    scoring goes through the fastest dispatch (``ops.dispatch``).
 
     Returns the best ``SearchResult`` (trace = best true score per iteration).
     """

@@ -5,7 +5,7 @@ the data can reject — the CONSEL / IQ-TREE "topology test" workflow. All
 tests ride the same two primitives as the branch supports: per-tree
 per-site log-likelihood vectors (branch lengths Newton-optimized per tree)
 and RELL resampling, one (replicates x patterns) @ (patterns x trees)
-matmul on the MXU.
+matmul.
 
 Implemented tests (per non-best tree, against the ML tree):
 - ``p_kh``   Kishino-Hasegawa via RELL: each tree's replicate totals are

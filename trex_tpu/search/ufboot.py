@@ -6,12 +6,12 @@ of IQ-TREE's UFBoot) never re-searches: it collects a candidate set of
 plausible topologies around the ML tree, computes each candidate's per-site
 log-likelihood vector ONCE (branch lengths Newton-optimized per candidate),
 and then scores every (replicate, candidate) pair by RELL — one
-(replicates x patterns) @ (patterns x candidates) matmul on the MXU. Each
+(replicates x patterns) @ (patterns x candidates) matmul. Each
 replicate's winning topology votes for the splits it contains; a branch's
 support is the fraction of replicates whose winner retains that split.
 
 The reference has no support machinery at all (SURVEY.md §5); this is new
-TPU-first capability: the per-candidate work is one batched Newton pass
+capability: the per-candidate work is one batched Newton pass
 (`jax.lax.map` over the candidate batch) and the resampling is a single
 matmul, so 1000 replicates cost barely more than 100.
 """
@@ -202,7 +202,7 @@ def ultrafast_bootstrap(
     rep_w = _replicate_weights(
         key, int(weights.shape[0]), n_replicates, weights
     ).astype(jnp.float32)  # (R, P)
-    rell = rep_w @ jnp.transpose(per_site)  # (R, M) — one MXU matmul
+    rell = rep_w @ jnp.transpose(per_site)  # (R, M) — one matmul
     winners = np.asarray(jnp.argmax(rell, axis=1))  # (R,)
     winner_counts = np.bincount(winners, minlength=n_cand)
 

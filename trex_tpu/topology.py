@@ -3,7 +3,7 @@
 The reference stores trees as dense ``(n_all, n_all)`` adjacency matrices and
 re-derives each ancestor's children inside the DP hot loop with a per-node
 ``jnp.where(adj[:, node] == 1, size=2)`` (``/root/reference/src/trex/sankoff.py:60``).
-That is a poor fit for the TPU: it serializes gathers over an O(N^2) matrix and
+That is a poor fit for an accelerator: it serializes gathers over an O(N^2) matrix and
 prevents batching heterogeneous candidate trees.
 
 Here a topology is two small integer tensors:

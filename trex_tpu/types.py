@@ -42,7 +42,7 @@ def set_default_dtype(dtype: jnp.dtype) -> None:
 
     Counterpart of the reference's knob (``/root/reference/src/trex/types.py:40``).
     ``float32`` is the accuracy default; ``bfloat16`` trades precision for
-    bandwidth on TPU (use for the soft-cost/gradient path, not the exact DP).
+    bandwidth (use for the soft-cost/gradient path, not the exact DP).
     """
     global _DEFAULT_DTYPE
     _DEFAULT_DTYPE = jnp.dtype(dtype)

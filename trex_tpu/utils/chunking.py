@@ -16,9 +16,8 @@ def auto_prune_chunk(
     tensors at once (``ops.spr_scan`` / ``ops.likelihood_scan``); above
     ``budget_bytes`` they must run in ``lax.map`` chunks. Returns None
     when the full scan fits (no chunk loop), else the largest chunk
-    within budget (>= 1). Exercised on chip up to 4096 taxa x 4096 sites
-    (benchmarks/scale_probe.py; known-limits table in
-    benchmarks/speed_of_light.md).
+    within budget (>= 1). The 2 GB default is carried over from the
+    previous accelerator and not yet derived for the H100.
     """
     if n_prune * per_prune_bytes <= budget_bytes:
         return None
